@@ -35,7 +35,7 @@ def main():
     b -= b.mean()                              # consistent RHS
 
     M = HIF().factorize(A, Options(verbose=0, dense_thres=50))
-    dp = M.to_device()  # f32 on TPU; f64 residuals below (mixed precision)
+    dp = M.to_device()  # host precision on device; f64 residuals below
     dp.nsp = NspFilter()                       # constant-mode projector
     print(f"tail rank {dp.tail.rank} of {dp.tail.Q.shape[0]} "
           f"(rank-revealing QRCP found the null space)")

@@ -17,12 +17,13 @@ import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+# a CPU study of structure and memory on 8 virtual devices
+os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                            + " --xla_force_host_platform_device_count=8")
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import numpy as np

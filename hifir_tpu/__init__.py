@@ -1,6 +1,8 @@
-"""hifir_tpu — a TPU-native multilevel ILU (HIF) preconditioning framework.
+"""hifir_tpu — a multilevel ILU (HIF) preconditioning framework in JAX.
 
-Brand-new JAX/XLA/Pallas implementation with the capabilities of the
+The factorization runs on the host (native C++ kernels); the preconditioner
+apply and the Krylov solvers run on the accelerator (one H100, or four over
+NVLink).  Brand-new JAX/XLA implementation with the capabilities of the
 reference ``hifirworks/hifir`` C++ library (multilevel incomplete LDU with
 scalability-oriented dropping and inverse-based condition control, wrapped in
 iterative refinement and Krylov drivers).  See SURVEY.md for the layer map.

@@ -6,10 +6,11 @@ multilevel preconditioner; ``solve``/``solve_mrhs`` apply M^{-1};
 ``hifir`` wraps the solve in iterative refinement; ``mmultiply`` applies the
 forward operator M; plus statistics and size accessors.
 
-TPU architecture: factorization is host-orchestrated (serial Crout semantics)
+Architecture: factorization is host-orchestrated (serial Crout semantics)
 with native C++ kernels when built; the preconditioner is exportable as a
 device pytree (:mod:`hifir_tpu.alg.prec`) whose application is a single jitted
-function driving FGMRES/GMRES on TPU.
+function driving FGMRES/GMRES on the accelerator (one H100, or four over
+NVLink).
 """
 
 from __future__ import annotations

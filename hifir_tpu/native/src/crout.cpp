@@ -41,7 +41,14 @@
 #include <cstdlib>
 #include <type_traits>
 #include <malloc.h>
+#ifdef _OPENMP
 #include <omp.h>
+#else
+// built without OpenMP: every parallel region runs on one thread, and the
+// chunk loops below cover all chunks from thread 0
+static inline int omp_get_thread_num() { return 0; }
+static inline int omp_get_num_threads() { return 1; }
+#endif
 #include <atomic>
 #include <thread>
 #include <x86intrin.h>

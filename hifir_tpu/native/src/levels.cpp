@@ -3,6 +3,16 @@
 
 #include "common.hpp"
 
+// 1 when the library was compiled with OpenMP (its 2-thread sections and
+// loops run in parallel), 0 for the serial build.
+HT_API int ht_openmp() {
+#ifdef _OPENMP
+  return 1;
+#else
+  return 0;
+#endif
+}
+
 HT_API void ht_trsv_levels(i64 n, const i64 *indptr, const i32 *indices,
                            int lower, i64 *lev) {
   if (lower) {

@@ -1,9 +1,9 @@
-"""Level-scheduled sparse triangular solve for TPU.
+"""Level-scheduled sparse triangular solve on the accelerator.
 
 This is the make-or-break kernel of the M-solve path (SURVEY.md §7.3.3),
 replacing the inherently sequential reference trsv
 (``/root/reference/src/hif/ds/CompressedStorage.hpp:1358,1451``) with a
-TPU-friendly formulation:
+static-shape formulation that XLA compiles for the accelerator:
 
 1. **Host schedule** (built once at factorize time): compute the dependency
    levels of the triangular factor; rows within a level are independent.
@@ -13,10 +13,10 @@ TPU-friendly formulation:
    (#levels * C).
 3. **Slot-ordered storage, scatter-free**: the solution vector is kept in
    *slot order* (the schedule order); dependency column ids are remapped to
-   slot ids on host.  Each scan step is then gather (fast on TPU) + FMA +
-   ``dynamic_update_slice`` of a contiguous chunk — no scatter at all, which
-   matters because XLA TPU serializes scatters with (possibly duplicate)
-   dynamic indices.  Entry/exit are single gathers between row and slot order.
+   slot ids on host.  Each scan step is then gather + FMA +
+   ``dynamic_update_slice`` of a contiguous chunk — no scatter at all, so
+   no step pays for scatters with (possibly duplicate) dynamic indices.
+   Entry/exit are single gathers between row and slot order.
 
 The same machinery solves the strict upper factor by scheduling on reversed
 dependencies.  Multiple RHS vectorize with ``jax.vmap``.
@@ -65,11 +65,10 @@ class TrsvDense:
     """Explicit dense inverse of a unit-diagonal triangular factor.
 
     For small deep factors the level-scheduled scan is latency-bound: each
-    dependency level is a serialized gather->update chain (~60us on the TPU
-    regardless of loop unrolling; measured on the frozen bench operator),
-    so a 1.9k-row factor with 105 levels costs >100 chunk latencies.  The
-    apply here is ONE MXU matmul: x = (I + strict(T))^{-1} b materialized
-    once at pack time.  This is numerically safe for HIF factors
+    dependency level is a serialized gather->update chain (one scan step,
+    see ``_STEP_ELEMS``), so a 1.9k-row factor with 105 levels costs >100
+    step latencies.  The apply here is ONE dense matmul:
+    x = (I + strict(T))^{-1} b materialized once at pack time.  This is numerically safe for HIF factors
     specifically because the inverse-based kappa condition control bounds
     ||(I+T)^{-1}|| <= kappa (3..5) BY CONSTRUCTION (ref Crout.hpp:486,
     thresholds.hpp:49) — the explicit inverse cannot blow up."""
@@ -93,11 +92,11 @@ class TrsvBlockDense:
     Rows in natural order are already dependency-safe for a lower factor
     (upper: reverse block order), so no level schedule is needed: the factor
     splits into B row blocks of width W; each block's diagonal triangle is
-    inverted densely (MXU matmul apply — safe for HIF factors, see
+    inverted densely (dense matmul apply — safe for HIF factors, see
     :class:`TrsvDense`) and its off-diagonal part stays sparse (sliced
     ELL gathered from the already-computed prefix).  The apply is B
     (SpMV + matmul + dynamic_update_slice) steps — e.g. 7 for a 14k-row
-    factor that the level schedule covered with 234 chunk latencies."""
+    factor that the level schedule covered with 234 chunks."""
 
     invs: Tuple[jax.Array, ...]   # per block (W, W) inverse (padded)
     offs: tuple                   # per block SlicedELL (W x n_pad)
@@ -229,7 +228,12 @@ def _cumsum0(a):
     return np.concatenate([[0], np.cumsum(a)])
 
 
-_STEP_ELEMS = 2500  # ~60us scan-step latency floor / ~24ns-per-elem gather
+# Cost of one scan step in gathered-element units: step latency over the
+# marginal cost per gathered element.  Measured on an NVIDIA H100 80GB HBM3
+# at a 700 W power limit (chip_smoke.scan_step_costs, f64): 6.7-7.2 us per
+# step, 0.12-0.15 ns per element at 65,536 elements per step (the widest
+# chunk * K the cost model picks) -> 45k-59k.
+_STEP_ELEMS = 50_000
 
 
 def _packed_slot_count(dcount, lev, chunk, cap):
@@ -266,7 +270,7 @@ def _schedule_cost(slots, K, chunk):
     """Memory + step cost of a (slots, K) schedule, in element units.
 
     Memory and gather work both scale with slots*K; each scan step
-    additionally pays a ~60us launch floor, charged at _STEP_ELEMS element
+    additionally pays a latency floor, charged at _STEP_ELEMS element
     equivalents per chunk so that splitting never wins on tiny factors where
     extra steps dominate any memory saving.
     """
@@ -495,26 +499,9 @@ def build_trsv_schedule(T, lower: bool, chunk: int = 256, dtype=None,
                         n, nchunks, chunk, nlev)
 
 
-def _scan_unroll(sched: TrsvSchedule) -> int:
-    """Scan unroll factor (experiment knob HT_TRSV_UNROLL; default 1).
-
-    Measured NULL RESULT on the real chip (frozen bench operator, unroll
-    1/4/8/16 all ~28 ms): the per-chunk cost is the serialized
-    gather->update dependency chain, not loop dispatch, so unrolling the
-    scan body does not help.  The effective levers are fewer chunks
-    (TrsvDense / TrsvBlockDense for small and mid-size factors) and mrhs
-    batching.  The knob is kept for A/B on other hardware."""
-    import os
-
-    env = os.environ.get("HT_TRSV_UNROLL")
-    if env:
-        return max(1, int(env))
-    return 1
-
-
 def trsv_apply(sched, b: jax.Array) -> jax.Array:
     """Solve (I + strict(T)) x = b on device via the chunked level scan
-    (or one MXU matmul for :class:`TrsvDense` factors)."""
+    (or one dense matmul for :class:`TrsvDense` factors)."""
     if isinstance(sched, TrsvDense):
         return jnp.matmul(sched.inv, b,
                           precision=jax.lax.Precision.HIGHEST)
@@ -536,8 +523,7 @@ def trsv_apply(sched, b: jax.Array) -> jax.Array:
         x = jax.lax.dynamic_update_slice(x, cur - contrib, (c,))
         return (x, c + C), None
 
-    (x, _), _ = jax.lax.scan(body, (x, 0), (sched.cols, sched.vals),
-                             unroll=_scan_unroll(sched))
+    (x, _), _ = jax.lax.scan(body, (x, 0), (sched.cols, sched.vals))
     return x[sched.out_slots]
 
 
@@ -560,11 +546,11 @@ def trsv_apply_mrhs(sched, B: jax.Array) -> jax.Array:
         x, c = carry
         cols, vals = inputs
         g = x[cols]                                # (C, K, nrhs)
-        contrib = jnp.einsum("ck,ckj->cj", vals, g)
+        contrib = jnp.einsum("ck,ckj->cj", vals, g,
+                             precision=jax.lax.Precision.HIGHEST)
         cur = jax.lax.dynamic_slice(x, (c, 0), (C, nrhs))
         x = jax.lax.dynamic_update_slice(x, cur - contrib, (c, 0))
         return (x, c + C), None
 
-    (x, _), _ = jax.lax.scan(body, (x, 0), (sched.cols, sched.vals),
-                             unroll=_scan_unroll(sched))
+    (x, _), _ = jax.lax.scan(body, (x, 0), (sched.cols, sched.vals))
     return x[sched.out_slots]

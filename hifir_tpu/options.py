@@ -65,7 +65,7 @@ class Options:
     """HIF control parameters (ref ``Options.h:82-117``, defaults ``:135-163``).
 
     All 28 reference fields are present with identical names and defaults.
-    Extra TPU-specific knobs live at the end and default to values that do not
+    Extra knobs of this implementation live at the end and default to values that do not
     change reference-parity behavior.
     """
 
@@ -98,11 +98,11 @@ class Options:
     nzp_thres: float = 0.65   # pattern-symmetry threshold for symm pre
     dense_thres: int = 2000   # size threshold for dense Schur termination
 
-    # --- TPU build extensions (not in the reference struct) ---------------
+    # --- extensions of this implementation (not in the reference struct) --
     dtype: str = "float64"    # factorization/solve precision
     use_native: int = 1       # use the compiled C++ host kernels when available
     dist_schur: int = 0       # distributed ring-SpGEMM Schur over the mesh
-    device_tail: int = 0      # factorize the dense tail on the TPU (QRCP)
+    device_tail: int = 0      # factorize the dense tail on the device (QRCP)
     symm_detect: int = 1      # auto-engage the LDL^T path on exactly
                               # symmetric real input (halves Crout scan work;
                               # the reference requires the user to set

@@ -3,7 +3,7 @@
 For banded orderings (RCM; stencil problems in natural order) a row shard
 only references x entries from adjacent shards.  Instead of the O(n)
 ``all_gather`` in :mod:`.sharded`, each device exchanges just the halo
-segments with its two ring neighbors over ICI (``jax.lax.ppermute``) — the
+segments with its two ring neighbors (``jax.lax.ppermute``) — the
 direct realization of the BASELINE north star ("halo vector segments
 exchanged via ppermute ... overlapped with local compute"; XLA overlaps the
 ppermute with the local gather/FMA automatically).

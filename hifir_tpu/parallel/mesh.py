@@ -1,8 +1,10 @@
 """Device mesh helpers.
 
 The reference has no distribution at all (SURVEY.md §2.7: OpenMP fork-join
-only); the TPU build scales via ``jax.sharding.Mesh`` + ``shard_map`` with XLA
-collectives over ICI (SURVEY.md §7.1).  Axes:
+only); this implementation scales via ``jax.sharding.Mesh`` + ``shard_map``
+with XLA collectives between the devices (SURVEY.md §7.1).  The mesh is a
+plain reshape of the device list: the four H100s of one host are joined all
+to all over NVLink, so no axis follows a physical topology.  Axes:
 
 - ``rhs``: data parallelism over right-hand sides (the analog of DP),
 - ``rows``: 1-D row-block sharding of sparse operators (the analog of TP),

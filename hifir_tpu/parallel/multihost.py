@@ -1,14 +1,15 @@
 """Multi-host initialization helpers.
 
-For pod slices spanning multiple hosts, JAX requires
+For jobs spanning several processes, JAX requires
 ``jax.distributed.initialize`` before any backend use; afterwards the global
-mesh covers all hosts' devices and every collective in this package
-(`all_gather` in the sharded SpMV/trsv/M-solve) rides ICI within a slice and
-DCN across slices automatically.  This is the TPU-native replacement for the
-multi-process story the reference never had (SURVEY.md §2.7).
+mesh covers all processes' devices and every collective in this package
+(`all_gather` in the sharded SpMV/trsv/M-solve) crosses process boundaries
+automatically.  This is the multi-process story the reference never had
+(SURVEY.md §2.7).
 
-Not exercised in CI (single-host environment); the same code paths are
-validated on the 8-virtual-device CPU mesh.
+Tested on the CPU backend (two processes with virtual devices each).  On
+GPUs each process owns its own cards (one process per GPU, selected with
+``CUDA_VISIBLE_DEVICES``).
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
                          process_id: Optional[int] = None) -> None:
     """Initialize the JAX distributed runtime (idempotent).
 
-    With TPU pod environment variables set (as on Cloud TPU), all arguments
-    are auto-detected and may be omitted.
+    On a GPU machine no cluster environment is auto-detected: pass the
+    coordinator address (``localhost:<port>`` on one host), the process
+    count and this process's id.
     """
     try:
         jax.distributed.initialize(coordinator_address=coordinator_address,

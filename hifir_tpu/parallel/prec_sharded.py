@@ -28,7 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..alg.prec import DenseTail, tail_solve
+from ..alg.prec import DenseTail, pack_tail, tail_solve
 from ..ops.spmv import ELL, ell_from_csr
 from ..ops.trsv import build_trsv_schedule
 from .exchange import XPlan, build_exchange_plan, xplan_fetch
@@ -411,12 +411,7 @@ class DistPrec:
                 F_val=jax.device_put(Fe.values, sh2),
                 m=m, n=n, E_rows=Ee.nrows, F_rows=Fe.nrows,
                 vec_sharded=shard_vectors, xin=xin))
-        tail = None
-        if M.precs[-1].dense_solver is not None:
-            from ..alg.prec import DevicePrec
-
-            dp = DevicePrec.from_host(M.precs, dtype=dtype, chunk=C)
-            tail = dp.tail
+        tail = pack_tail(M.precs[-1], dtype)
         return cls(mesh, levels, tail, comm, ag_comm, n_halo)
 
     def solve(self, b) -> jax.Array:

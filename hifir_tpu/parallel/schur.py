@@ -1,10 +1,10 @@
 """Distributed Schur-complement SpGEMM (ring over column panels).
 
-TPU-native replacement for the reference's shared-memory Schur kernels
+Device replacement for the reference's shared-memory Schur kernels
 (``/root/reference/src/hif/alg/Schur.hpp:214`` serial, ``:587-700`` OpenMP
 row blocks): the SURVEY §2.7 strategy #2 — local ``L_E·D·U_F`` products over
 *column-partitioned* ``U_F`` panels with the panels rotated around the device
-ring (``ppermute`` over ICI), so that
+ring (``ppermute``), so that
 
 - device ``k`` owns row block ``k`` of ``L_E`` / ``C`` and column panel ``k``
   of ``U_F``;

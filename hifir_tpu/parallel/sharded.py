@@ -7,7 +7,7 @@ multi-device iterative-refinement step combining
 - ``rhs`` axis: data parallelism over right-hand sides (each device group
   owns a slice of the RHS batch; no communication),
 - ``rows`` axis: 1-D row-block sharding of the operator A; the SpMV gathers
-  the needed x entries with ``all_gather`` over ICI (the halo exchange of
+  the needed x entries with ``all_gather`` (the halo exchange of
   SURVEY.md §2.7 item 3; ``ppermute``-based neighbor-only exchange is the
   planned refinement for banded orderings).
 
@@ -83,8 +83,9 @@ def make_sharded_ir_step(mesh: Mesh, n: int):
         # this device's RHS slice (all rows).
         X_ext = jnp.concatenate(
             [X, jnp.zeros((1, X.shape[1]), dtype=X.dtype)])
-        Y_local = jnp.einsum("rk,rkj->rj", val, X_ext[idx])
-        # assemble the full residual on every row-shard (ICI all-gather);
+        Y_local = jnp.einsum("rk,rkj->rj", val, X_ext[idx],
+                             precision=jax.lax.Precision.HIGHEST)
+        # assemble the full residual on every row-shard (all-gather);
         # B rows for this shard: slice by the rows index
         r_idx = jax.lax.axis_index("rows").astype(jnp.int32)
         nloc = Y_local.shape[0]

@@ -24,8 +24,8 @@ its own exact metadata instead of a scan-wide maximum:
   to the exact halo it must carry (zero-width legs are elided entirely —
   frequent for upper factors of banded orderings):
 
-  - ring-neighbor deps ride two ``ppermute`` package sends (point-to-point
-    over ICI; for RCM/banded factors this is nearly all of the halo);
+  - ring-neighbor deps ride two ``ppermute`` package sends (point-to-point;
+    for RCM/banded factors this is nearly all of the halo);
   - the far remainder rides one ``all_gather`` of a *compact* package per
     device (only the slots some non-neighbor device reads, width =
     per-chunk max over producers) instead of the whole ``C - Cloc``

@@ -5,7 +5,7 @@ is the partitioned counterpart from the BASELINE north star: rows within a
 dependency level are independent, so each level-chunk is **split across the
 ``rows`` mesh axis** — every device computes its slice of the chunk from its
 shard of the factor, then the slices are reassembled with a tiled
-``all_gather`` over ICI before the next chunk (the halo exchange of vector
+``all_gather`` before the next chunk (the halo exchange of vector
 segments; with levels as chunks the number of collectives equals the chunk
 count, not n).
 
@@ -83,7 +83,7 @@ def _kernel(n, nchunks, chunk, in_rows, cols, vals, out_slots, b):
         # this device's slice of the chunk starts at c + my*Cloc
         cur = jax.lax.dynamic_slice(x, (c + my * jnp.int32(Cloc),), (Cloc,))
         new_local = cur - contrib
-        # reassemble the full chunk over ICI and write it back
+        # reassemble the full chunk and write it back
         new_full = jax.lax.all_gather(new_local, "rows", axis=0, tiled=True)
         x = jax.lax.dynamic_update_slice(x, new_full, (c,))
         return (x, c + jnp.int32(chunk)), None

@@ -113,6 +113,7 @@ def _load() -> Optional[ctypes.CDLL]:
         and
         _bind(lib, "ht_trsv_upper_mrhs_s", None,
               [c, _I64, _I32, _F32, _F32, c]))
+    lib._has_openmp_query = _bind(lib, "ht_openmp", ctypes.c_int, [])
     if not ok:
         return None
     _LIB = lib
@@ -121,6 +122,15 @@ def _load() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return _load() is not None
+
+
+def built_with_openmp() -> Optional[bool]:
+    """Whether the loaded library runs its parallel regions with OpenMP
+    (None when no library is loaded)."""
+    lib = _load()
+    if lib is None or not lib._has_openmp_query:
+        return None
+    return bool(lib.ht_openmp())
 
 
 def has_crout() -> bool:

@@ -1,10 +1,10 @@
 """Dense last-level solvers: LUP, rank-revealing QRCP, SYEIG.
 
-Re-designs ``/root/reference/src/hif/small_scale/{LUP,QRCP,SYEIG}.hpp`` for the
-TPU build.  Factorization happens once per ``HIF.factorize`` on host (scipy
+Re-designs ``/root/reference/src/hif/small_scale/{LUP,QRCP,SYEIG}.hpp`` for
+this implementation.  Factorization happens once per ``HIF.factorize`` on host (scipy
 LAPACK: ``getrf``/``geqp3``/``syev`` — the same routines the reference binds in
 ``small_scale/lapack.hpp``); the resulting factors are plain arrays that the
-jitted device solve path consumes (triangular solves + GEMV on the MXU).
+jitted device solve path consumes (triangular solves + dense products).
 
 The rank-revealing behavior follows ``QRCP.hpp:109-180``: default condition
 threshold ``eps^{-2/3}`` with rank truncation making the preconditioner an
@@ -167,7 +167,7 @@ class SYEIG:
 
 
 class DeviceQRCP(QRCP):
-    """QRCP whose factorization runs on the TPU (``qrcp_device``) during
+    """QRCP whose factorization runs on the device (``qrcp_device``) during
     ``HIF.factorize`` — the device offload of the dense last level (SURVEY
     §7.2-L4; opt-in via ``Options.device_tail``).  Q/R/piv are pulled back
     to host so the solve/multiply paths are identical to :class:`QRCP`
@@ -198,7 +198,7 @@ class DeviceQRCP(QRCP):
 def make_dense_solver(symm: bool, spd: int = 0, device: bool = False):
     """Solver selection (ref ``small_scale/solver.hpp:42`` trait +
     ``Prec.hpp:104-127``): QRCP by default, SYEIG for symmetric systems;
-    ``device`` routes the asymmetric QRCP factorization to the TPU."""
+    ``device`` routes the asymmetric QRCP factorization to the device."""
     if symm:
         return SYEIG()
     return DeviceQRCP() if device else QRCP()

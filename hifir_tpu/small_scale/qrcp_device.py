@@ -1,10 +1,10 @@
 """Device (jitted) Householder QR with column pivoting.
 
-TPU-native replacement for LAPACK ``geqp3`` (ref ``small_scale/QRCP.hpp`` and
+Device replacement for LAPACK ``geqp3`` (ref ``small_scale/QRCP.hpp`` and
 the north-star requirement that the dense last level run as device kernels):
 a masked, fixed-shape Householder sweep with greedy column pivoting and
 norm downdating, entirely inside one jit — each step is rank-1 updates and
-(n,) reductions on the VPU/MXU.
+(n,) reductions.
 
 Numerically follows geqp3: pivot = trailing column of largest (downdated)
 norm; the downdating drift is guarded by clamping.  Rank determination
@@ -21,6 +21,8 @@ import jax.numpy as jnp
 import numpy as np
 
 __all__ = ["qrcp_device", "qrcp_rank"]
+
+_mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
 
 @jax.jit
@@ -56,8 +58,8 @@ def qrcp_device(A: jax.Array) -> Tuple[jax.Array, jax.Array, jax.Array]:
         vnorm = jnp.linalg.norm(v)
         v = jnp.where(vnorm > 0, v / jnp.where(vnorm > 0, vnorm, 1.0), v)
         # apply the reflector: R -= 2 v (v^T R);  Q -= 2 (Q v) v^T
-        R = R - 2.0 * jnp.outer(v, v @ R)
-        Q = Q - 2.0 * jnp.outer(Q @ v, v)
+        R = R - 2.0 * jnp.outer(v, _mm(v, R))
+        Q = Q - 2.0 * jnp.outer(_mm(Q, v), v)
         # clean the annihilated entries and set the diagonal exactly
         col = jnp.where(idx > k, 0.0, R[:, k]).at[k].set(alpha)
         R = R.at[:, k].set(col)

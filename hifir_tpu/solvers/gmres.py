@@ -1,4 +1,4 @@
-"""Jitted TPU Krylov drivers: right-preconditioned GMRES(m) and FGMRES-HIFIR.
+"""Jitted device Krylov drivers: right-preconditioned GMRES(m) and FGMRES-HIFIR.
 
 Device re-design of the reference example solvers
 (``/root/reference/examples/advanced/gmres.hpp:18-122`` gmres_hif and
@@ -22,6 +22,11 @@ from ..ops.spmv import ell_matvec
 
 __all__ = ["gmres_hif_device", "fgmres_hifir_device", "ir_apply_device",
            "gmres_mrhs_device"]
+
+# Krylov contractions run at full precision: an unpinned f32 contraction may
+# run in TF32 (about 3 decimal digits) on the GPU.
+_mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
+_einsum = functools.partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 
 
 def ir_apply_device(A, levels, tail, b, nirs: int, r=None) -> jax.Array:
@@ -71,12 +76,12 @@ def _restart_cycle(A, levels, tail, b, x, rtol_bnrm, restart: int,
         z = msolve(V[j])
         w = ell_matvec(A, z)
         # classical Gram-Schmidt with reorthogonalization (CGS2): two masked
-        # (m+1, n) matmuls per pass — rides the MXU instead of a slice loop
+        # (m+1, n) matmuls per pass instead of a slice loop
         mask_v = (jnp.arange(m + 1) <= j).astype(dtype)
-        h1 = (V.conj() @ w) * mask_v
-        w = w - h1 @ V
-        h2 = (V.conj() @ w) * mask_v
-        w = w - h2 @ V
+        h1 = _mm(V.conj(), w) * mask_v
+        w = w - _mm(h1, V)
+        h2 = _mm(V.conj(), w) * mask_v
+        w = w - _mm(h2, V)
         h = h1 + h2
         H = H.at[:, j].set(h)
         hj1 = jnp.linalg.norm(w)
@@ -117,7 +122,7 @@ def _restart_cycle(A, levels, tail, b, x, rtol_bnrm, restart: int,
     Hm = Hm + jnp.diag(jnp.where(mask, 0.0, 1.0))
     y = jax.scipy.linalg.solve_triangular(Hm, jnp.where(mask, g[:m], 0.0),
                                           lower=False)
-    x_new = x + Z.T @ y
+    x_new = x + _mm(Z.T, y)
     res = jnp.abs(g[jnp.minimum(j_used, m)])
     return x_new, res, j_used
 
@@ -212,10 +217,10 @@ def _restart_cycle_mrhs(A, levels, tail, B, X, restart: int):
         W = ell_matvec_mrhs(A, Zj)
         # batched CGS2
         mask = (jnp.arange(m + 1) <= j).astype(dtype)[:, None]
-        h1 = jnp.einsum("ink,nk->ik", V.conj(), W) * mask
-        W = W - jnp.einsum("ik,ink->nk", h1, V)
-        h2 = jnp.einsum("ink,nk->ik", V.conj(), W) * mask
-        W = W - jnp.einsum("ik,ink->nk", h2, V)
+        h1 = _einsum("ink,nk->ik", V.conj(), W) * mask
+        W = W - _einsum("ik,ink->nk", h1, V)
+        h2 = _einsum("ink,nk->ik", V.conj(), W) * mask
+        W = W - _einsum("ik,ink->nk", h2, V)
         h = h1 + h2
         hj1 = jnp.linalg.norm(W, axis=0)                    # (R,)
         Hcol = h.at[j + 1].set(hj1)
@@ -259,7 +264,7 @@ def _restart_cycle_mrhs(A, levels, tail, B, X, restart: int):
     grhs = jnp.where(used, jnp.moveaxis(g[:m], -1, 0), 0.0)
     y = jax.vmap(lambda Hk, gk: jax.scipy.linalg.solve_triangular(
         Hk, gk, lower=False))(Hm, grhs)                       # (R, m)
-    X_new = X + jnp.einsum("jnk,kj->nk", Z, y)
+    X_new = X + _einsum("jnk,kj->nk", Z, y)
     res = jnp.abs(g[m])                                      # (R,)
     return X_new, res
 

@@ -18,12 +18,13 @@ import os
 import sys
 
 pid, nproc, port = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
+# a CPU-only test: 4 virtual CPU devices per process
+os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                            + " --xla_force_host_platform_device_count=4")
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import numpy as np  # noqa: E402

@@ -37,7 +37,7 @@ def test_capi_end_to_end(tmp_path):
     env = dict(os.environ)
     env["LHF_PYTHON"] = sys.executable
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
-    # the embedded interpreter must not try to grab the TPU
+    # the embedded interpreter runs its JAX code on the CPU backend
     env["JAX_PLATFORMS"] = "cpu"
     r = subprocess.run([str(exe)], capture_output=True, text=True, env=env,
                        timeout=600)

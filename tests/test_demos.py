@@ -2,7 +2,7 @@
 examples after the unit tests — .github/workflows/github-actions.yml:20-25).
 
 Each demo is executed as a subprocess exactly as a user would run it; the
-expensive/device-bound ones (demo_tpu_batch, distprec_scale,
+expensive/device-bound ones (demo_device_batch, distprec_scale,
 partition_study, make_bench_fixture) are exercised elsewhere.
 """
 

@@ -1,6 +1,6 @@
 """Device (jitted) compute-path tests on the CPU backend.
 
-Validates the TPU code paths — level-scheduled trsv, sliced-ELL SpMV, the
+Validates the device code paths — level-scheduled trsv, sliced-ELL SpMV, the
 jitted multilevel solve (single and multiple RHS), and the device Krylov
 drivers — against the host anchors.  Runs on the fake CPU backend configured
 in conftest (8 virtual devices, x64).
@@ -50,16 +50,19 @@ def test_trsv_k_cap_packing(lower, k_cap):
     """Wide rows split into partial-sum slots: exact, and memory bounded.
 
     Matrix: random strict triangle plus a few dense rows (degree >> k_cap) —
-    the case where the unsplit (nslots, K) layout blows up by Kmax.
+    the case where the unsplit (nslots, K) layout blows up by Kmax.  The
+    "auto" case is sized so that the memory saving outweighs the extra scan
+    steps at the measured step cost (``ops.trsv._STEP_ELEMS``).
     """
-    n = 200
+    n = 2000 if k_cap == "auto" else 200
     rng = np.random.default_rng(7)
     T = random_strict_triangular(n, lower=lower, seed=11)
     # densify a few rows: row i gets all columns < i (lower) or > i (upper)
     import scipy.sparse as sp
 
     M = sp.csr_matrix((T.data, T.indices, T.indptr), shape=(n, n)).tolil()
-    for i in (120, 150, 199) if lower else (0, 40, 80):
+    dense_rows = (0.6, 0.75, 0.995) if lower else (0.0, 0.2, 0.4)
+    for i in (int(f * n) for f in dense_rows):
         js = np.arange(i) if lower else np.arange(i + 1, n)
         M[i, js] = rng.standard_normal(js.size) * 0.1
     M = M.tocsr()
